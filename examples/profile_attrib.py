@@ -16,9 +16,9 @@ sys.path.insert(0, "/root/repo")
 import jax
 import jax.numpy as jnp
 
-from rgbd_slam_tpu import engine
-from rgbd_slam_tpu.config import TUM_FR1, SlamConfig
-from rgbd_slam_tpu.synthetic import WallScene, lateral_trajectory
+from rgbd_slam import engine
+from rgbd_slam.config import TUM_FR1, SlamConfig
+from rgbd_slam.synthetic import WallScene, lateral_trajectory
 
 
 def time_variant(name, cfg, frames_dev, cam, n_warm=3):

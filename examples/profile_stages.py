@@ -14,13 +14,13 @@ sys.path.insert(0, "/root/repo")
 import jax
 import jax.numpy as jnp
 
-from rgbd_slam_tpu import engine
-from rgbd_slam_tpu.config import TUM_FR1, SlamConfig
-from rgbd_slam_tpu.features import primitives
-from rgbd_slam_tpu.ops import brief, fast, image, matching, optical_flow
-from rgbd_slam_tpu.pose.features import MatchedFeatures
-from rgbd_slam_tpu.pose.optimizer import compute_optimized_pose
-from rgbd_slam_tpu.synthetic import WallScene, lateral_trajectory
+from rgbd_slam import engine
+from rgbd_slam.config import TUM_FR1, SlamConfig
+from rgbd_slam.features import primitives
+from rgbd_slam.ops import brief, fast, image, matching, optical_flow
+from rgbd_slam.pose.features import MatchedFeatures
+from rgbd_slam.pose.optimizer import compute_optimized_pose
+from rgbd_slam.synthetic import WallScene, lateral_trajectory
 
 
 def timeit(name, fn, *args, n=20):

@@ -19,11 +19,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from rgbd_slam_tpu import runner
-from rgbd_slam_tpu.config import TUM_FR1, CameraIntrinsics, SlamConfig
-from rgbd_slam_tpu.io import datasets
-from rgbd_slam_tpu.io.map_writer import export_slam_map
-from rgbd_slam_tpu.io.trajectory import ate_rmse
+from rgbd_slam import runner
+from rgbd_slam.config import TUM_FR1, CameraIntrinsics, SlamConfig
+from rgbd_slam.io import datasets
+from rgbd_slam.io.map_writer import export_slam_map
+from rgbd_slam.io.trajectory import ate_rmse
 
 CAMERAS = {
     "tum_fr1": TUM_FR1,
@@ -61,7 +61,7 @@ def main():
 
     setup = None
     if args.camera_yaml:
-        from rgbd_slam_tpu.config import load_camera_yaml
+        from rgbd_slam.config import load_camera_yaml
 
         setup = load_camera_yaml(args.camera_yaml)
         cam = setup.rgb
@@ -77,7 +77,7 @@ def main():
     print(f"{len(index)} frames in {args.dataset}")
 
     if args.native_loader:
-        from rgbd_slam_tpu.io.native_loader import NativeFrameLoader
+        from rgbd_slam.io.native_loader import NativeFrameLoader
 
         loader = NativeFrameLoader([i.rgb_path for i in index],
                                    [i.depth_path for i in index],

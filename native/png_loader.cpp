@@ -1,13 +1,13 @@
 // Native dataset loader: minimal PNG decoder + prefetching frame loader.
 //
 // The reference relies on OpenCV imread on the hot dataset path
-// (examples/main_TUM.cpp:230-260, examples/main_CAPE.cpp:48-65).  At the TPU
+// (examples/main_TUM.cpp:230-260, examples/main_CAPE.cpp:48-65).  At the
 // engine's target frame rates the Python/PIL decode path becomes the host
 // bottleneck, so this C++ loader decodes TUM-style PNGs (8-bit gray/RGB color
 // images and 16-bit grayscale depth) straight into float32 buffers with a worker
 // thread pool prefetching ahead of the device pipeline.
 //
-// Exposed via a C ABI consumed by ctypes (rgbd_slam_tpu/io/native_loader.py).
+// Exposed via a C ABI consumed by ctypes (rgbd_slam/io/native_loader.py).
 // Zero third-party deps beyond zlib.
 
 #include <zlib.h>

@@ -4,11 +4,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from rgbd_slam_tpu import engine, runner
-from rgbd_slam_tpu.config import CameraIntrinsics, EngineConfig, MappingConfig, SlamConfig
-from rgbd_slam_tpu.io import checkpoint
-from rgbd_slam_tpu.profiling import StageTimer
-from rgbd_slam_tpu.synthetic import WallScene, lateral_trajectory
+from rgbd_slam import engine, runner
+from rgbd_slam.config import CameraIntrinsics, EngineConfig, MappingConfig, SlamConfig
+from rgbd_slam.io import checkpoint
+from rgbd_slam import profiling
+from rgbd_slam.profiling import StageTimer
+from rgbd_slam.synthetic import WallScene, lateral_trajectory
 import pytest
 
 CAM = CameraIntrinsics(width=320, height=240, fx=260.0, fy=260.0, cx=160.0, cy=120.0)
@@ -113,10 +114,37 @@ class TestStageTimer:
         assert "15.00 ms" in report  # mean of extract
 
 
+class TestDeviceTrace:
+    @pytest.mark.parametrize("path,stage", [
+        ("jit(<lambda>)/jit(step)/jit(track_forward_backward)/"
+         "jit(lk_forward_backward)/pallas_call", "track_forward_backward"),
+        ("jit(step)/add", "step"),
+        ("jit(solve)/dot_general", "solve"),
+        ("copy", "?"),
+    ])
+    def test_stage_of(self, path, stage):
+        assert profiling.stage_of(path) == stage
+
+    def test_cpu_trace_has_no_gpu_events(self, tmp_path):
+        """A trace without GPU device planes is an error, not a zero time."""
+        f = jax.jit(lambda x: x * 2.0)
+        f(jnp.ones(8)).block_until_ready()
+        with jax.profiler.trace(str(tmp_path)):
+            f(jnp.ones(8)).block_until_ready()
+        with pytest.raises(RuntimeError, match="no GPU device events"):
+            profiling.gpu_events(str(tmp_path))
+        with pytest.raises(RuntimeError, match="no profiler trace"):
+            profiling.gpu_events(str(tmp_path / "missing"))
+
+    def test_measurement_needs_a_gpu(self):
+        with pytest.raises(RuntimeError, match="no GPU"):
+            profiling.require_gpu()
+
+
 @pytest.mark.slow
 class TestDebugImage:
     def test_renders_overlays(self):
-        from rgbd_slam_tpu.io.debug_image import render_debug_image
+        from rgbd_slam.io.debug_image import render_debug_image
 
         frames = short_sequence(2)
         state = engine.init_state(CAM, CFG)
@@ -130,7 +158,7 @@ class TestDebugImage:
         assert colored.sum() > 100
 
     def test_lost_tint(self):
-        from rgbd_slam_tpu.io.debug_image import render_debug_image
+        from rgbd_slam.io.debug_image import render_debug_image
 
         frames = short_sequence(1)
         state = engine.init_state(CAM, CFG)
@@ -152,9 +180,9 @@ class TestConfigParity:
         import pathlib
         import re
 
-        from rgbd_slam_tpu import config as config_mod
+        from rgbd_slam import config as config_mod
 
-        pkg = pathlib.Path(__file__).resolve().parents[1] / "rgbd_slam_tpu"
+        pkg = pathlib.Path(__file__).resolve().parents[1] / "rgbd_slam"
         parts = []
         for p in pkg.rglob("*.py"):
             text = p.read_text()
@@ -177,7 +205,7 @@ class TestConfigParity:
     def test_fast_thresholds_follow_reference_curve(self):
         """Defaults equal the reference's empirical curve 41.2378*0.99945^points at
         10x / 30x maximumPointPerFrame (keypoint_detection.cpp:48-65)."""
-        from rgbd_slam_tpu.config import DetectionConfig
+        from rgbd_slam.config import DetectionConfig
 
         det = DetectionConfig()
         assert det.fast_threshold == det.fast_threshold_curve(
@@ -191,7 +219,7 @@ class TestConfigParity:
         (keypoint_detection.cpp:435-452)."""
         import jax.numpy as jnp
 
-        from rgbd_slam_tpu.ops import fast
+        from rgbd_slam.ops import fast
 
         rng = np.random.default_rng(3)
         img = jnp.asarray(
@@ -212,7 +240,7 @@ class TestConfigParity:
         (rotX, rotY, rotZ) into EulerAngles(yaw, pitch, roll) (types.hpp:80)
         and angle_utils.cpp:6-12 composes AngleAxis(roll,X) * AngleAxis(pitch,Y)
         * AngleAxis(yaw,Z), so the extrinsic rotation is Rx(rotZ)*Ry(rotY)*Rz(rotX)."""
-        from rgbd_slam_tpu.config import load_camera_yaml
+        from rgbd_slam.config import load_camera_yaml
 
         rx, ry, rz = 0.05, -0.02, 0.11
         yaml = tmp_path / "cam.yaml"

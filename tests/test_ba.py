@@ -7,9 +7,9 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from rgbd_slam_tpu.config import CameraIntrinsics
-from rgbd_slam_tpu.geometry import pinhole, se3
-from rgbd_slam_tpu.parallel import ba
+from rgbd_slam.config import CameraIntrinsics
+from rgbd_slam.geometry import pinhole, se3
+from rgbd_slam.parallel import ba
 
 CAM = CameraIntrinsics(width=640, height=480, fx=520.0, fy=520.0, cx=320.0, cy=240.0)
 K, L, C = 6, 128, 4
@@ -132,6 +132,45 @@ class TestShardedBA:
         np.testing.assert_allclose(np.asarray(sh_poses), np.asarray(ref_poses),
                                    atol=5e-2)
 
+    @pytest.mark.parametrize("solver", ["dense", "pcg"])
+    def test_anchored_with_depth_matches_single_device(self, rng, solver):
+        """The live-pipeline solve (odometry/map anchors + measured depth) on
+        the mesh, with either reduced solver, reproduces the one-device solve."""
+        k8 = 8  # 6*K must divide the mesh axis (48 / 8)
+        gt_poses, gt_lm, obs_kf, uv, mask = make_window(rng, K=k8, L=128, C=4)
+        poses0, lm0 = perturb(rng, gt_poses, gt_lm)
+        obs_z = jnp.where(mask, gt_lm[:, None, 0] + 5.0, 0.0)
+
+        ref_poses, _, ref_costs = ba.ba_solve(
+            poses0, lm0, obs_kf, uv, mask, CAM, iterations=5, anchored=True,
+            obs_z=obs_z)
+        mesh = Mesh(np.array(jax.devices()[:8]).reshape(8), ("lm",))
+        fn = ba.make_sharded_ba(mesh, CAM, n_keyframes=k8, iterations=5,
+                                anchored=True, reduced_solver=solver,
+                                with_depth=True)
+        sh_poses, _, sh_costs = fn(poses0, lm0, obs_kf, uv, mask, obs_z)
+
+        np.testing.assert_allclose(np.asarray(sh_costs), np.asarray(ref_costs),
+                                   rtol=2e-3)
+        np.testing.assert_allclose(np.asarray(sh_poses), np.asarray(ref_poses),
+                                   atol=2e-2)
+
+    def test_chip_smoke_four_card_path(self):
+        """chip_smoke.py --four-cards on 4 of the virtual devices: a full
+        keyframe window refined through the runner's sharded solve and the
+        pcg reduced solve, each checked against the one-device refine."""
+        import os
+        import sys
+
+        sys.path.insert(0, os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        import chip_smoke
+
+        res = chip_smoke.sharded_ba(jax.devices()[:4])
+        assert res["landmarks"] > 256
+        assert res["dense"][-1] < 0.5 * res["dense"][0]
+        assert len(res["pcg"]) == len(res["one_device"]) == 8
+
     def test_ba_iters_per_second_positive(self, rng):
         import time
 
@@ -152,11 +191,11 @@ class TestKeyframeWindow:
     def _run_engine_window(self):
         import jax.numpy as jnp
 
-        from rgbd_slam_tpu import engine
-        from rgbd_slam_tpu.config import (CameraIntrinsics, EngineConfig,
+        from rgbd_slam import engine
+        from rgbd_slam.config import (CameraIntrinsics, EngineConfig,
                                           MappingConfig, SlamConfig)
-        from rgbd_slam_tpu.parallel.keyframes import KeyframeWindow
-        from rgbd_slam_tpu.synthetic import WallScene, lateral_trajectory
+        from rgbd_slam.parallel.keyframes import KeyframeWindow
+        from rgbd_slam.synthetic import WallScene, lateral_trajectory
 
         cam = CameraIntrinsics(width=320, height=240, fx=260.0, fy=260.0,
                                cx=160.0, cy=120.0)
@@ -200,7 +239,7 @@ class TestKeyframeWindow:
         assert result is not None
         refined, lm, costs = result
         window.apply_refinement(refined, lm)
-        from rgbd_slam_tpu.geometry import se3
+        from rgbd_slam.geometry import se3
         q0, p0 = refined[-1]
         np.testing.assert_allclose(
             window.poses[-1],
@@ -209,7 +248,7 @@ class TestKeyframeWindow:
             atol=1e-5)
 
     def test_window_slides(self):
-        from rgbd_slam_tpu.parallel.keyframes import KeyframeWindow
+        from rgbd_slam.parallel.keyframes import KeyframeWindow
 
         class FakeOut:
             def __init__(self):
@@ -233,10 +272,10 @@ class TestLiveBAIntegration:
     local_map.hpp:263-266)."""
 
     def _run(self, ba_every=None):
-        from rgbd_slam_tpu.config import (DepthNoiseModel, EngineConfig,
+        from rgbd_slam.config import (DepthNoiseModel, EngineConfig,
                                           MappingConfig, SlamConfig)
-        from rgbd_slam_tpu.runner import evaluate_against_ground_truth, run_frames
-        from rgbd_slam_tpu.synthetic import RoomScene, orbit_trajectory
+        from rgbd_slam.runner import evaluate_against_ground_truth, run_frames
+        from rgbd_slam.synthetic import RoomScene, orbit_trajectory
 
         cam = CameraIntrinsics(width=320, height=240, fx=260.0, fy=260.0,
                                cx=160.0, cy=120.0)

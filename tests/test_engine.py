@@ -12,10 +12,10 @@ import pytest
 
 pytestmark = pytest.mark.slow  # engine-compile-heavy tier
 
-from rgbd_slam_tpu import engine
-from rgbd_slam_tpu.config import CameraIntrinsics, SlamConfig, MappingConfig, EngineConfig
-from rgbd_slam_tpu.geometry import se3
-from rgbd_slam_tpu.mapping import maps
+from rgbd_slam import engine
+from rgbd_slam.config import CameraIntrinsics, SlamConfig, MappingConfig, EngineConfig
+from rgbd_slam.geometry import se3
+from rgbd_slam.mapping import maps
 
 CAM = CameraIntrinsics(width=320, height=240, fx=260.0, fy=260.0, cx=160.0, cy=120.0)
 CFG = SlamConfig(
@@ -178,7 +178,7 @@ class TestCylinderPipeline:
     primitive_detection.cpp:437-476; CAPE tunnel is north-star config 3)."""
 
     def test_tunnel_frame_detects_cylinder(self):
-        from rgbd_slam_tpu.synthetic import TunnelScene
+        from rgbd_slam.synthetic import TunnelScene
 
         scene = TunnelScene(CAM, radius_mm=1200.0)
         q = np.array([1.0, 0.0, 0.0, 0.0], np.float32)
@@ -196,8 +196,8 @@ class TestCylinderPipeline:
         assert int(out2.n_cylinders) == 0
 
     def test_debug_image_tints_cylinder_cells(self):
-        from rgbd_slam_tpu.io.debug_image import render_debug_image
-        from rgbd_slam_tpu.synthetic import TunnelScene
+        from rgbd_slam.io.debug_image import render_debug_image
+        from rgbd_slam.synthetic import TunnelScene
 
         scene = TunnelScene(CAM, radius_mm=1200.0)
         q = np.array([1.0, 0.0, 0.0, 0.0], np.float32)
@@ -242,7 +242,7 @@ class TestPlaneMatchGate:
         """Detection in CAMERA coordinates (optical: z forward); the axis
         correction maps cam z->world x, cam -x->world y, cam -y->world z, so
         basis u=(-1,0,0), v=(0,-1,0) lands on the map's world (y, z) basis."""
-        from rgbd_slam_tpu.features.primitives import (MAX_PLANES,
+        from rgbd_slam.features.primitives import (MAX_PLANES,
                                                        DetectedPlanes)
 
         nverts = 16
@@ -304,9 +304,9 @@ class TestDepthlessFusion:
     cartesian projection (map_point.cpp:188-240), not a diagonal inflation."""
 
     def test_observation_on_ray_with_ray_aligned_covariance(self):
-        from rgbd_slam_tpu.geometry import inverse_depth as idp
-        from rgbd_slam_tpu.geometry import pinhole
-        from rgbd_slam_tpu.tracking import inverse_depth_tracking as idt
+        from rgbd_slam.geometry import inverse_depth as idp
+        from rgbd_slam.geometry import pinhole
+        from rgbd_slam.tracking import inverse_depth_tracking as idt
 
         det = CFG.detection
         c2w = se3.camera_to_world(jnp.asarray([1.0, 0, 0, 0], jnp.float32),

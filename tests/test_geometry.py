@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rgbd_slam_tpu.config import CameraIntrinsics
-from rgbd_slam_tpu.geometry import basis, covariances, lines, pinhole, planes, se3
+from rgbd_slam.config import CameraIntrinsics
+from rgbd_slam.geometry import basis, covariances, lines, pinhole, planes, se3
 
 CAM = CameraIntrinsics(width=640, height=480, fx=548.86, fy=549.36, cx=316.49, cy=229.06)
 
@@ -275,7 +275,7 @@ class TestJitAndBatch:
 
 class TestEig3:
     def test_matches_eigh(self, rng):
-        from rgbd_slam_tpu.geometry.eig3 import sym_eig3_smallest
+        from rgbd_slam.geometry.eig3 import sym_eig3_smallest
 
         m = rng.normal(size=(64, 3, 3)).astype(np.float32)
         a = jnp.asarray(np.einsum("nij,nkj->nik", m, m))  # PSD
@@ -286,7 +286,7 @@ class TestEig3:
         np.testing.assert_allclose(dot, 1.0, atol=5e-3)
 
     def test_isotropic_matrix(self):
-        from rgbd_slam_tpu.geometry.eig3 import sym_eig3_smallest
+        from rgbd_slam.geometry.eig3 import sym_eig3_smallest
 
         a = jnp.eye(3)[None] * 2.5
         vals, vec = sym_eig3_smallest(a)
@@ -299,7 +299,7 @@ class TestCovarianceValidFast:
     on valid, indefinite, asymmetric and non-finite inputs."""
 
     def test_agrees_with_reference_check(self, rng):
-        from rgbd_slam_tpu.geometry import covariances
+        from rgbd_slam.geometry import covariances
         a = rng.normal(size=(32, 3, 3)).astype(np.float32)
         spd = a @ np.swapaxes(a, -1, -2) + 0.1 * np.eye(3, dtype=np.float32)
         assert np.asarray(
@@ -313,7 +313,7 @@ class TestCovarianceValidFast:
         assert got[3:].all()
 
     def test_6x6_cholesky_path(self):
-        from rgbd_slam_tpu.geometry import covariances
+        from rgbd_slam.geometry import covariances
         good = np.eye(6, dtype=np.float32) * 1e-3
         assert bool(covariances.is_covariance_valid_fast(jnp.asarray(good)))
         assert not bool(covariances.is_covariance_valid_fast(

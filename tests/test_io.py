@@ -5,8 +5,8 @@ import os
 import numpy as np
 import pytest
 
-from rgbd_slam_tpu.io import datasets, map_writer
-from rgbd_slam_tpu.io.trajectory import Trajectory, ate_rmse, umeyama_alignment
+from rgbd_slam.io import datasets, map_writer
+from rgbd_slam.io.trajectory import Trajectory, ate_rmse, umeyama_alignment
 
 
 class TestTumParsing:
@@ -57,7 +57,7 @@ class TestTrajectory:
 
     def test_ate_invariant_to_rigid_motion(self, rng):
         p = rng.normal(size=(50, 3)) * 100
-        from rgbd_slam_tpu.geometry import se3
+        from rgbd_slam.geometry import se3
         import jax.numpy as jnp
 
         q = rng.normal(size=4)
@@ -109,8 +109,8 @@ class TestMapWriters:
         assert "POINTS 2" in text and "DATA ascii" in text
 
     def test_export_slam_map(self, tmp_path):
-        from rgbd_slam_tpu import engine
-        from rgbd_slam_tpu.config import CameraIntrinsics, SlamConfig, MappingConfig
+        from rgbd_slam import engine
+        from rgbd_slam.config import CameraIntrinsics, SlamConfig, MappingConfig
 
         cfg = SlamConfig(mapping=MappingConfig(max_points_3d=32, max_points_2d=8,
                                                max_planes=4))
@@ -134,10 +134,10 @@ class TestStreamingMapExport:
     def test_dead_features_reach_the_export(self, tmp_path):
         import jax.numpy as jnp
 
-        from rgbd_slam_tpu import runner
-        from rgbd_slam_tpu.mapping import maps as maps_mod
+        from rgbd_slam import runner
+        from rgbd_slam.mapping import maps as maps_mod
         from test_engine import CAM, CFG, render
-        from rgbd_slam_tpu.geometry import se3
+        from rgbd_slam.geometry import se3
 
         # 4 static frames promote wall points to local; a long pan then drives
         # the original features out of view until they exceed the 10-miss

@@ -1,19 +1,19 @@
 """Kalman filter behavior tests.
 
 Mirrors the reference's testKalmanFiltering tier (tests/test_kalman_filtering.cpp):
-textbook problems with known limits — plus batched-update coverage, since the TPU
+textbook problems with known limits — plus batched-update coverage, since this
 design runs ALL features through one vectorized step.
 """
 
 import jax.numpy as jnp
 import numpy as np
 
-from rgbd_slam_tpu.tracking import inverse_depth_tracking as idt
-from rgbd_slam_tpu.tracking import motion_model
-from rgbd_slam_tpu.tracking.kalman import kalman_step, track_planes, track_points
-from rgbd_slam_tpu.geometry import inverse_depth as idp
-from rgbd_slam_tpu.geometry import se3
-from rgbd_slam_tpu.geometry.covariances import is_covariance_valid
+from rgbd_slam.tracking import inverse_depth_tracking as idt
+from rgbd_slam.tracking import motion_model
+from rgbd_slam.tracking.kalman import kalman_step, track_planes, track_points
+from rgbd_slam.geometry import inverse_depth as idp
+from rgbd_slam.geometry import se3
+from rgbd_slam.geometry.covariances import is_covariance_valid
 
 
 class TestKalmanStep:

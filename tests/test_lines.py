@@ -5,7 +5,7 @@ point/line design, reference README.md:134-136)."""
 import numpy as np
 import jax.numpy as jnp
 
-from rgbd_slam_tpu.features import lines
+from rgbd_slam.features import lines
 import pytest
 
 
@@ -81,7 +81,7 @@ class TestLinesInPose:
     reference never wires lines into its optimizer, rgbd_slam.cpp:304-313)."""
 
     def _cam_cfg(self):
-        from rgbd_slam_tpu.config import (CameraIntrinsics, EngineConfig,
+        from rgbd_slam.config import (CameraIntrinsics, EngineConfig,
                                           MappingConfig, SlamConfig)
         cam = CameraIntrinsics(width=320, height=240, fx=260.0, fy=260.0,
                                cx=160.0, cy=120.0)
@@ -95,10 +95,10 @@ class TestLinesInPose:
     def test_lines_only_recovers_pose(self, rng):
         """8 world segments in varied orientations constrain the full 6-dof pose."""
         import jax
-        from rgbd_slam_tpu.config import CameraIntrinsics
-        from rgbd_slam_tpu.geometry import pinhole, se3
-        from rgbd_slam_tpu.pose.features import make_matched_features
-        from rgbd_slam_tpu.pose.optimizer import compute_optimized_pose
+        from rgbd_slam.config import CameraIntrinsics
+        from rgbd_slam.geometry import pinhole, se3
+        from rgbd_slam.pose.features import make_matched_features
+        from rgbd_slam.pose.optimizer import compute_optimized_pose
 
         cam = CameraIntrinsics(width=640, height=480, fx=520.0, fy=520.0,
                                cx=320.0, cy=240.0)
@@ -135,8 +135,8 @@ class TestLinesInPose:
     def test_line_map_builds_and_matches(self):
         """Engine on a stripe wall: the line map fills and matches frame-to-frame."""
         import jax.numpy as jnp
-        from rgbd_slam_tpu import engine
-        from rgbd_slam_tpu.synthetic import StripeWallScene, lateral_trajectory
+        from rgbd_slam import engine
+        from rgbd_slam.synthetic import StripeWallScene, lateral_trajectory
 
         cam, cfg = self._cam_cfg()
         scene = StripeWallScene(cam)
@@ -158,8 +158,8 @@ class TestLinesInPose:
     def test_degrades_to_points_without_depth_lines(self):
         """with_lines=True on a line-free textured wall behaves like points-only."""
         import jax.numpy as jnp
-        from rgbd_slam_tpu import engine
-        from rgbd_slam_tpu.synthetic import WallScene, lateral_trajectory
+        from rgbd_slam import engine
+        from rgbd_slam.synthetic import WallScene, lateral_trajectory
 
         cam, cfg = self._cam_cfg()
         scene = WallScene(cam)

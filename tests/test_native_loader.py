@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from rgbd_slam_tpu.io import native_loader
+from rgbd_slam.io import native_loader
 
 pytestmark = pytest.mark.skipif(not native_loader.available(),
                                 reason="native library not built")

@@ -9,8 +9,8 @@ import pytest
 import jax.numpy as jnp
 import numpy as np
 
-from rgbd_slam_tpu.config import CameraIntrinsics
-from rgbd_slam_tpu.ops import brief, depth_cloud, fast, image, matching, optical_flow
+from rgbd_slam.config import CameraIntrinsics
+from rgbd_slam.ops import brief, depth_cloud, fast, image, matching, optical_flow
 
 CAM = CameraIntrinsics(width=64, height=48, fx=50.0, fy=50.0, cx=32.0, cy=24.0)
 
@@ -247,8 +247,8 @@ class TestRectifyTwoCamera:
     depth_map_transformation.cpp:23-87)."""
 
     def test_offset_camera_rectifies_onto_rgb_view(self):
-        from rgbd_slam_tpu.config import CameraIntrinsics
-        from rgbd_slam_tpu.synthetic import RoomScene
+        from rgbd_slam.config import CameraIntrinsics
+        from rgbd_slam.synthetic import RoomScene
 
         cam = CameraIntrinsics(width=160, height=120, fx=130.0, fy=130.0,
                                cx=80.0, cy=60.0)
@@ -273,10 +273,10 @@ class TestRectifyTwoCamera:
         assert (err < 25.0).mean() > 0.9
 
     def test_runner_applies_rectification(self):
-        from rgbd_slam_tpu import runner
-        from rgbd_slam_tpu.config import (CameraIntrinsics, CameraSetup,
+        from rgbd_slam import runner
+        from rgbd_slam.config import (CameraIntrinsics, CameraSetup,
                                           SlamConfig)
-        from rgbd_slam_tpu.synthetic import RoomScene, lateral_trajectory
+        from rgbd_slam.synthetic import RoomScene, lateral_trajectory
 
         cam = CameraIntrinsics(width=160, height=120, fx=130.0, fy=130.0,
                                cx=80.0, cy=60.0)

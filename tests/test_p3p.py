@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from rgbd_slam_tpu.geometry import pinhole, se3
-from rgbd_slam_tpu.ops.p3p import p3p
-from rgbd_slam_tpu.config import CameraIntrinsics
+from rgbd_slam.geometry import pinhole, se3
+from rgbd_slam.ops.p3p import p3p
+from rgbd_slam.config import CameraIntrinsics
 
 CAM = CameraIntrinsics(width=640, height=480, fx=520.0, fy=520.0, cx=320.0, cy=240.0)
 

@@ -12,8 +12,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from rgbd_slam_tpu.geometry import se3
-from rgbd_slam_tpu.parallel.pose_graph import (
+from rgbd_slam.geometry import se3
+from rgbd_slam.parallel.pose_graph import (
     PoseGraph, _np_rel_coeffs, np_compose, np_relative, solve_pose_graph)
 
 
@@ -171,9 +171,9 @@ class TestPoseGraphLayer:
 class TestRunnerIntegration:
     @pytest.fixture(scope="class")
     def scene_run(self):
-        from rgbd_slam_tpu import runner
-        from rgbd_slam_tpu.config import CameraIntrinsics, SlamConfig
-        from rgbd_slam_tpu.synthetic import RoomScene, orbit_trajectory
+        from rgbd_slam import runner
+        from rgbd_slam.config import CameraIntrinsics, SlamConfig
+        from rgbd_slam.synthetic import RoomScene, orbit_trajectory
 
         cam = CameraIntrinsics(width=320, height=240, fx=260.0, fy=260.0,
                                cx=160.0, cy=120.0)
@@ -188,7 +188,7 @@ class TestRunnerIntegration:
         """Keyframe-gated BA + pose graph runs live and stays accurate: the
         anchored window must not degrade the trajectory (the r2 bench showed
         un-anchored BA tripling ATE — this is the regression gate)."""
-        from rgbd_slam_tpu import runner
+        from rgbd_slam import runner
         frames, gt, cam, cfg = scene_run
         _, traj_off, _ = runner.run_frames(frames, cam, cfg, with_planes=True)
         ate_off = runner.evaluate_against_ground_truth(
@@ -209,7 +209,7 @@ class TestRunnerIntegration:
         """The window must hold SELECTED keyframes (motion-gated), not every
         frame (VERDICT r2 missing #3): with 6 mm/frame motion and a 20 mm
         gate, keyframes are ~1 in 3-4 frames."""
-        from rgbd_slam_tpu import runner
+        from rgbd_slam import runner
         frames, gt, cam, cfg = scene_run
         _, traj, stats = runner.run_frames(frames, cam, cfg, with_planes=True,
                                            ba_every=8)

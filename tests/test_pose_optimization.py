@@ -13,10 +13,10 @@ import pytest
 
 pytestmark = pytest.mark.slow  # LM/RANSAC behavior suites (compile-heavy)
 
-from rgbd_slam_tpu.config import CameraIntrinsics, EngineConfig
-from rgbd_slam_tpu.geometry import pinhole, planes, se3
-from rgbd_slam_tpu.pose.features import make_matched_features
-from rgbd_slam_tpu.pose.optimizer import compute_optimized_pose, lm_solve
+from rgbd_slam.config import CameraIntrinsics, EngineConfig
+from rgbd_slam.geometry import pinhole, planes, se3
+from rgbd_slam.pose.features import make_matched_features
+from rgbd_slam.pose.optimizer import compute_optimized_pose, lm_solve
 
 CAM = CameraIntrinsics(width=640, height=480, fx=548.86, fy=549.36, cx=316.49, cy=229.06)
 FAST_ENGINE = EngineConfig(pose_covariance_mc_iterations=16, lm_iterations=12,
@@ -144,7 +144,7 @@ class TestMultiFeatureOptimization:
         assert_pose_recovered(res, GT_QUAT, GT_POS, pos_tol=8.0, rot_tol_deg=0.4)
 
     def test_covariance_is_valid(self, rng):
-        from rgbd_slam_tpu.geometry.covariances import is_covariance_valid
+        from rgbd_slam.geometry.covariances import is_covariance_valid
 
         world = make_cube_cloud(rng)
         obs, _ = observe_points(world, GT_QUAT, GT_POS)
@@ -218,7 +218,7 @@ class TestLMCore:
         q0, p0 = perturbed_pose(rng, GT_QUAT, GT_POS, 100.0, 0.1)
         c0 = se3.pose_to_coefficients(q0, p0)
         c1, cost1 = lm_solve(c0, feats, CAM, iterations=12)
-        from rgbd_slam_tpu.pose.residuals import residual_vector
+        from rgbd_slam.pose.residuals import residual_vector
 
         cost0 = float(jnp.sum(residual_vector(c0, feats, CAM) ** 2))
         assert float(cost1) < cost0 * 1e-2

@@ -8,9 +8,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from rgbd_slam_tpu.config import CameraIntrinsics, DetectionConfig
-from rgbd_slam_tpu.features import primitives
-from rgbd_slam_tpu.utils import polygon as poly
+from rgbd_slam.config import CameraIntrinsics, DetectionConfig
+from rgbd_slam.features import primitives
+from rgbd_slam.utils import polygon as poly
 
 CAM = CameraIntrinsics(width=320, height=240, fx=250.0, fy=250.0, cx=160.0, cy=120.0)
 CFG = DetectionConfig()
@@ -41,7 +41,7 @@ def cylinder_depth(cam, radius, axis_y_mm=0.0, center_z=2000.0, h=240, w=320):
 class TestCellFitting:
     def test_flat_wall_cells_planar(self):
         depth = plane_depth(CAM, np.array([0.0, 0.0, 1.0]), -2000.0)
-        from rgbd_slam_tpu.ops.depth_cloud import depth_to_cloud
+        from rgbd_slam.ops.depth_cloud import depth_to_cloud
 
         cloud, valid = depth_to_cloud(jnp.asarray(depth), CAM)
         grid = primitives.fit_cells(cloud, valid, CFG)
@@ -57,7 +57,7 @@ class TestCellFitting:
         depth = plane_depth(CAM, np.array([0.0, 0.0, 1.0]), -2000.0)
         # a big step through the middle of the image
         depth[:, 170:] += 800.0
-        from rgbd_slam_tpu.ops.depth_cloud import depth_to_cloud
+        from rgbd_slam.ops.depth_cloud import depth_to_cloud
 
         cloud, valid = depth_to_cloud(jnp.asarray(depth), CAM)
         grid = primitives.fit_cells(cloud, valid, CFG)
@@ -67,7 +67,7 @@ class TestCellFitting:
 
     def test_random_noise_not_planar(self, rng):
         depth = rng.uniform(500, 4000, (240, 320)).astype(np.float32)
-        from rgbd_slam_tpu.ops.depth_cloud import depth_to_cloud
+        from rgbd_slam.ops.depth_cloud import depth_to_cloud
 
         cloud, valid = depth_to_cloud(jnp.asarray(depth), CAM)
         grid = primitives.fit_cells(cloud, valid, CFG)
@@ -213,7 +213,7 @@ class TestPolygonOps:
         min_plane_overlap_for_match = 0.4 inter-over-area gate, and the
         extreme long-arm L (4:1 aspect) must stay within its own analytic
         bound hull/true = (4*4 - 3*3/2)/7 = 23/14 ~ 1.64."""
-        from rgbd_slam_tpu.config import MatchingConfig
+        from rgbd_slam.config import MatchingConfig
 
         gate = MatchingConfig().min_plane_overlap_for_match
         # symmetric L: one arm vs merged hull

@@ -27,8 +27,8 @@ def make_tum_room_dataset(tmp_path, n_frames=5):
     rgb.txt / depth.txt / groundtruth.txt association lists."""
     from PIL import Image
 
-    from rgbd_slam_tpu.config import CameraIntrinsics
-    from rgbd_slam_tpu.synthetic import RoomScene, lateral_trajectory
+    from rgbd_slam.config import CameraIntrinsics
+    from rgbd_slam.synthetic import RoomScene, lateral_trajectory
 
     cam = CameraIntrinsics(width=CAM_W, height=CAM_H, fx=260.0, fy=260.0,
                            cx=160.0, cy=120.0)

@@ -1,36 +1,35 @@
 #!/usr/bin/env python
-"""Op-level device profile of the steady-state engine step.
+"""Op-level GPU profile of the steady-state engine step.
 
-Dumps the top XLA ops by device time with their source file:line, so the
-bench's "other" bucket can be attributed module by module (VERDICT r4 weak #7).
+Dumps the top device ops by time with the jitted function each sits in, so the
+bench's stage table can be attributed op by op (VERDICT r4 weak #7).  Runs on a
+GPU only.
 
 Usage: python tools/profile_step.py [n_top]
 """
 
 import collections
-import glob
-import gzip
-import json
+import os
 import sys
+import tempfile
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
-import jax.numpy as jnp
 
-from rgbd_slam_tpu.utils.compile_cache import enable as _enable_cache
-
-_enable_cache()
-from rgbd_slam_tpu import engine, runner
-from rgbd_slam_tpu.config import TUM_FR1, SlamConfig
-from rgbd_slam_tpu.geometry.covariances import DepthNoiseModel
-from rgbd_slam_tpu.synthetic import RoomScene, orbit_trajectory
+from rgbd_slam import engine, profiling, runner
+from rgbd_slam.config import TUM_FR1, SlamConfig
+from rgbd_slam.geometry.covariances import DepthNoiseModel
+from rgbd_slam.synthetic import RoomScene, orbit_trajectory
 
 N_FRAMES = 12
 
 
 def main():
     n_top = int(sys.argv[1]) if len(sys.argv) > 1 else 60
+    dev = profiling.require_gpu()
+    print(f"{dev.device_kind} x{len(jax.devices())}; card: "
+          f"{profiling.gpu_card()}")
     cam, cfg = TUM_FR1, SlamConfig()
     scene = RoomScene(cam, depth_noise=DepthNoiseModel())
     poses = orbit_trajectory(N_FRAMES, speed_mm=4.0)
@@ -43,48 +42,33 @@ def main():
         state, out = step_d(state, g, d)
     jax.block_until_ready(out)
 
-    trace_dir = "/tmp/profile_step_trace"
-    with jax.profiler.trace(trace_dir):
-        for g, d in frames[2:]:
-            state, out = step_d(state, g, d)
-        jax.block_until_ready(out)
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with jax.profiler.trace(trace_dir):
+            for g, d in frames[2:]:
+                state, out = step_d(state, g, d)
+            jax.block_until_ready(out)
+        events = profiling.gpu_events(trace_dir)
 
-    paths = sorted(glob.glob(f"{trace_dir}/plugins/profile/*/*.trace.json.gz"))
-    with gzip.open(paths[-1]) as f:
-        tr = json.load(f)
-    events = tr["traceEvents"]
-    pid_names = {e["pid"]: e["args"]["name"] for e in events
-                 if e.get("ph") == "M" and e.get("name") == "process_name"}
     n = N_FRAMES - 2
     by_op = collections.Counter()
-    op_src = {}
-    total = 0.0
-    for e in events:
-        if e.get("ph") != "X" or "TPU" not in pid_names.get(e.get("pid"), ""):
-            continue
-        if e["name"].startswith("jit_"):
-            continue
-        args = e.get("args") or {}
-        dur = e.get("dur", 0)
-        total += dur
-        key = e["name"]
-        by_op[key] += dur
-        src = args.get("source", "?")
-        op_src[key] = "/".join(src.split("/")[-2:])
+    op_stage = {}
+    for _, dur, stats in events:
+        key = str(stats.get("hlo_op", "?"))
+        by_op[key] += dur / 1e3
+        op_stage[key] = profiling.stage_of(str(stats.get("name", "")))
+    total = sum(by_op.values())
     print(f"device total: {total / n:.1f} us/frame over {n} frames")
-    print(f"{'us/frame':>9}  {'%':>5}  op  [source]")
+    print(f"{'us/frame':>9}  {'%':>5}  op  [stage]")
     for name, dur in by_op.most_common(n_top):
         print(f"{dur / n:9.1f}  {100 * dur / total:5.1f}  {name}  "
-              f"[{op_src.get(name, '?')}]")
+              f"[{op_stage[name]}]")
 
-    # module-level rollup (finer than bench's stage map)
-    by_mod = collections.Counter()
+    by_stage = collections.Counter()
     for name, dur in by_op.items():
-        mod = op_src.get(name, "?").split(":")[0]
-        by_mod[mod] += dur
-    print("\nby source module:")
-    for mod, dur in by_mod.most_common(40):
-        print(f"{dur / n:9.1f}  {100 * dur / total:5.1f}  {mod}")
+        by_stage[op_stage[name]] += dur
+    print("\nby stage:")
+    for stage, dur in by_stage.most_common(40):
+        print(f"{dur / n:9.1f}  {100 * dur / total:5.1f}  {stage}")
 
 
 if __name__ == "__main__":
